@@ -1,7 +1,7 @@
 """Procedural noise (include/mitsuba/render/noise.h — pbrt-derived
 Perlin noise and its fBm/turbulence combinators).
 
-TPU redesign: the reference's 256-entry shuffled permutation table
+Redesign: the reference's 256-entry shuffled permutation table
 (noise.cpp NoisePerm) drives lattice hashing; here the lattice hash is
 the framework's counter-based hash_u32 (core/rng.py) — the same
 avalanche quality with zero table gathers, which is the expensive

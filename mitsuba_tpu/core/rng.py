@@ -1,6 +1,6 @@
 """Stateless counter-based RNG for sample streams.
 
-TPU-native replacement for the reference's SIMD Mersenne Twister
+Replacement for the reference's SIMD Mersenne Twister
 (include/mitsuba/core/random.h:88) and per-pixel Sampler state
 (include/mitsuba/render/sampler.h:66-153): instead of mutable per-core RNG
 objects, every sample is a *pure function* of (seed, pixel index, sample
@@ -8,7 +8,7 @@ index, dimension). This makes renders deterministic, replayable (the analog
 of the reference's ReplayableSampler, bidir/rsampler.h:38), and trivially
 shardable — any device can produce any pixel's samples with no state.
 
-Core hash: PCG-style uint32 mixing (pcg3d/pcg4d family) — cheap integer VPU
+Core hash: PCG-style uint32 mixing (pcg3d/pcg4d family) — cheap integer
 ops, no threefry tables.
 """
 from __future__ import annotations

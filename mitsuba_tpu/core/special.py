@@ -1,7 +1,7 @@
 """Special-function math tier: spherical harmonics, Catmull-Rom splines,
 Brent's root finder, Gauss quadrature.
 
-TPU-native analog of the reference's small-math headers the integrators
+Analog of the reference's small-math headers the integrators
 and data fits lean on:
   * include/mitsuba/core/sh.h + libcore/shvector.cpp — real SH basis
     (here: batched closed-form recurrence evaluation, jit/vmap friendly);
@@ -108,7 +108,8 @@ def sh_project(fn, order: int, n_theta: int = 64, n_phi: int = 128):
     vals = fn(d.reshape(-1, 3)).reshape(n_theta, n_phi)
     basis = sh_eval(d.reshape(-1, 3), order).reshape(n_theta, n_phi, -1)
     w = jnp.asarray(wg) * (2.0 * np.pi / n_phi)   # per-theta weight
-    return jnp.einsum("tp,tpk,t->k", vals, basis, w)
+    return jnp.einsum("tp,tpk,t->k", vals, basis, w,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@ RGB->spectrum upsampling, blackbody SPDs, Cauchy dispersion.
 
 The reference's spectral mode is a compile-time SPECTRUM_SAMPLES=N build
 (include/mitsuba/core/spectrum.h; its shipped config uses N=3 RGB,
-config-linux-gcc.py:7). The TPU redesign makes spectra a RUNTIME path
+config-linux-gcc.py:7). The batched redesign makes spectra a RUNTIME path
 instead: each camera sample draws one hero wavelength plus K-1 rotated
 companions (Wilkie et al. 2014's hero-wavelength scheme — the natural
 fit for SIMD lanes), every RGB quantity is lifted to those wavelengths
@@ -117,10 +117,15 @@ def _calibrate():
 _Y_SCALE, _K_INV, _KW_INV = _calibrate()
 
 
+def _matmul(a, b):
+    """Full float32 product (no reduced-precision matmul mode)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def rgb_response(lam):
     """Per-wavelength camera response: rgb weight density (..., 3) such
     that integrating response * spectrum over lam yields linear sRGB."""
-    return (xyz_cmf(lam) @ jnp.asarray(XYZ_TO_SRGB.T, jnp.float32)
+    return (_matmul(xyz_cmf(lam), jnp.asarray(XYZ_TO_SRGB.T, jnp.float32))
             / _Y_SCALE)
 
 
@@ -147,7 +152,7 @@ def upsample(rgb: jax.Array, lam: jax.Array) -> jax.Array:
     """Lift linear-sRGB EMISSION rgb (..., 3) to spectral values at lam
     (..., K) -> (..., K); round-trips through rgb_response for in-gamut
     colors, clamped at 0 outside."""
-    coeff = rgb @ jnp.asarray(_K_INV.T)                 # (..., 3)
+    coeff = _matmul(rgb, jnp.asarray(_K_INV.T))         # (..., 3)
     br, bg, bb = _basis_jnp(lam)
     s = (coeff[..., 0:1] * br + coeff[..., 1:2] * bg + coeff[..., 2:3] * bb)
     return jnp.maximum(s, 0.0)
@@ -160,7 +165,7 @@ def upsample_reflectance(rgb: jax.Array, lam: jax.Array) -> jax.Array:
     the white-illuminant-calibrated basis mix, so viewing under white
     light returns exactly rgb."""
     w = jnp.min(rgb, axis=-1, keepdims=True)            # (..., 1)
-    coeff = (rgb - w) @ jnp.asarray(_KW_INV.T)          # (..., 3)
+    coeff = _matmul(rgb - w, jnp.asarray(_KW_INV.T))    # (..., 3)
     br, bg, bb = _basis_jnp(lam)
     s = (w + coeff[..., 0:1] * br + coeff[..., 1:2] * bg
          + coeff[..., 2:3] * bb)

@@ -1,6 +1,6 @@
 """Sample warping library: [0,1)^2 -> distributions on spheres/disks/cones.
 
-TPU-native equivalent of the reference warp library
+Equivalent of the reference warp library
 (include/mitsuba/core/warp.h:40-89, src/libcore/warp.cpp) — every mapping is
 a batched pure function plus its pdf, so `sample` and `pdf` can be
 chi-square-tested against each other (the reference's core QA idea,

@@ -2,7 +2,7 @@
 
 The reference's tiledhdrfilm (src/films/tiledhdrfilm.cpp) streams
 finished ImageBlocks into a tiled OpenEXR file so huge-resolution
-renders never hold the whole framebuffer. The TPU redesign renders the
+renders never hold the whole framebuffer. The batched redesign renders the
 film in ROW BANDS — one jitted band program (traced band origin, so XLA
 compiles once), executed per band, each band written into a
 pre-allocated uncompressed scanline EXR through seek-writes. Peak host

@@ -1,6 +1,6 @@
 """AOV-style integrators: depth, position/normal fields, ambient occlusion.
 
-TPU-native analogs of src/integrators/misc/{ao.cpp,field.cpp,depth.cpp}.
+Analogs of src/integrators/misc/{ao.cpp,field.cpp,depth.cpp}.
 """
 from __future__ import annotations
 

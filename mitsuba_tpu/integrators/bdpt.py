@@ -2,7 +2,7 @@
 light-path starts, Veach MIS over every (s,t) strategy, and the t=1
 light-tracing image.
 
-TPU-native analog of src/integrators/bdpt (strategy enumeration
+Analog of src/integrators/bdpt (strategy enumeration
 bdpt_proc.cpp:163; light image composited at bdpt_proc.cpp:283,347-352;
 libbidir PathVertex walks vertex.h:272). Both subpaths are dense
 (N, depth, ...) wavefront arrays built in one unrolled walk; every (s,t)

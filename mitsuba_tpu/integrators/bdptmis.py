@@ -2,7 +2,7 @@
 
 The reference computes Veach MIS weights by walking cached per-vertex
 pdf arrays (libbidir's Path::miWeight over PathVertex pdf[] fields,
-include/mitsuba/bidir/path.h). A TPU wavefront can't afford per-connection
+include/mitsuba/bidir/path.h). A wavefront can't afford per-connection
 O(depth) re-walks over gathered vertices, so this module keeps the
 *streaming* form of the same sums — the two recursive quantities
 (here `dvcm`, `dvc`) popularized by the SmallVCM/VCM technical report

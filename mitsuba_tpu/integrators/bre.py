@@ -1,6 +1,6 @@
 """Volumetric photon mapping with a stepped beam radiance estimate.
 
-TPU-native analog of src/integrators/photonmapper/bre.cpp (192 LoC):
+Analog of src/integrators/photonmapper/bre.cpp (192 LoC):
 the reference builds a BVH over volume photons and intersects the camera
 beam with per-photon spheres; here the beam integral is a fixed-step
 jittered quadrature along the ray — each step queries a hash grid of

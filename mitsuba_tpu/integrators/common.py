@@ -1,6 +1,6 @@
 """Render orchestration: sample generation, spp-chunking, film accumulation.
 
-TPU-native analog of RenderJob/BlockedRenderProcess/renderBlock
+Analog of RenderJob/BlockedRenderProcess/renderBlock
 (src/librender/renderjob.cpp:87, renderproc.cpp:26-115,
 integrator.cpp:99-196): instead of a scheduler farming 32x32 pixel blocks to
 worker threads in Hilbert order, the film is rendered as giant ray batches

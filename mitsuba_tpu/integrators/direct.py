@@ -1,6 +1,6 @@
 """MIS direct illumination integrator.
 
-TPU-native analog of src/integrators/direct/direct.cpp: one visible-surface
+Analog of src/integrators/direct/direct.cpp: one visible-surface
 intersection, emitted radiance, then both direct-lighting strategies
 (emitter sampling + BSDF sampling) combined with the power heuristic.
 """

@@ -1,6 +1,6 @@
 """Energy redistribution path tracing (Cline et al. 2005).
 
-TPU-native analog of src/integrators/erpt (erpt_proc.cpp): ordinary path
+Analog of src/integrators/erpt (erpt_proc.cpp): ordinary path
 tracing generates seed paths; each seed's energy is redistributed over the
 image by a short Metropolis chain in primary sample space, depositing a
 fixed quantum per mutation. Like pssmlt.py, thousands of chains run in

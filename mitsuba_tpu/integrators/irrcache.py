@@ -1,7 +1,7 @@
 """Irradiance caching (src/librender/irrcache.cpp:44 HierarchicalIrradianceCache
 + src/integrators/misc/irrcache).
 
-TPU-native redesign: the reference's lazily-filled octree with per-query
+Redesign: the reference's lazily-filled octree with per-query
 insertion is pointer-chasing, mutation-heavy, and order-dependent — all
 hostile to SPMD. Instead the cache is built EAGERLY as a flat point
 cloud (the same strategy the dipole subsurface uses for its irradiance
@@ -158,10 +158,13 @@ def interpolate(cache, p, n):
         w = jnp.where(mask & (ndot > 0.1), w, 0.0)
         rot_axis = jnp.cross(nrm[pidx], n[:, None, :])     # (q,w,3)
         e_ext = (E[pidx]
-                 + jnp.einsum("qwca,qwa->qwc", g_rot[pidx], rot_axis)
-                 + jnp.einsum("qwca,qwa->qwc", g_tr[pidx], dvec))
+                 + jnp.einsum("qwca,qwa->qwc", g_rot[pidx], rot_axis,
+                              precision=jax.lax.Precision.HIGHEST)
+                 + jnp.einsum("qwca,qwa->qwc", g_tr[pidx], dvec,
+                              precision=jax.lax.Precision.HIGHEST))
         e_ext = jnp.maximum(e_ext, 0.0)
-        acc_e = acc_e + jnp.einsum("qw,qwc->qc", w, e_ext)
+        acc_e = acc_e + jnp.einsum("qw,qwc->qc", w, e_ext,
+                                   precision=jax.lax.Precision.HIGHEST)
         acc_w = acc_w + jnp.sum(w, -1)
         return acc_e, acc_w
 

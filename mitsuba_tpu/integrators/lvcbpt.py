@@ -1,12 +1,12 @@
 """Light-vertex-cache bidirectional path tracing (LVC-BPT).
 
-TPU-native analog of the fork's flagship integrator
+Analog of the fork's flagship integrator
 (src/integrators/myBDPT/LVCBPT.cpp:30-55): a light pass traces L light
 subpaths and stores EVERY vertex (including the emitter vertex itself) in
 a flat cache; the eye pass connects each eye vertex to M uniformly chosen
 cache vertices (connectSubpaths, LVCBPT.cpp:704-744). Unlike classic BDPT
 there is no per-pixel light subpath — the cache amortizes light-path work
-across all pixels, which on TPU means the whole cache is a dense SoA
+across all pixels, which in a wavefront means the whole cache is a dense SoA
 array and connections are pure batched gathers (no divergence).
 
 All three fork MIS modes (LVCBPT.cpp:88-96 m_MISmode) map through

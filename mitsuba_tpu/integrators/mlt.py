@@ -1,6 +1,6 @@
 """Path-space Metropolis light transport (Veach MLT).
 
-TPU-native analog of src/integrators/mlt/mlt.cpp (337 LoC) over the
+Analog of src/integrators/mlt/mlt.cpp (337 LoC) over the
 libbidir mutator tier (mut_bidir.h:38 bidirectional mutation,
 mut_lens.h:36 lens perturbation). Where the reference runs a few long
 chains over pooled PathVertex objects, this runs tens of thousands of
@@ -393,7 +393,7 @@ def eval_path(scene, cam, pos, prim, k, K):
 
     f = jnp.where(ok[:, None], f, 0.0)
     f = jnp.nan_to_num(f, nan=0.0, posinf=0.0, neginf=0.0)
-    return f, f @ LUM, pixel
+    return f, jnp.matmul(f, LUM, precision=jax.lax.Precision.HIGHEST), pixel
 
 
 def _bsdf_area_pdf(scene, v_prev, v, prim, v_next, prim_next,

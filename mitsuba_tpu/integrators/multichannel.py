@@ -1,6 +1,6 @@
 """Multichannel rendering: radiance + AOVs in one jitted pass.
 
-TPU-native analog of src/integrators/misc/multichannel.cpp (run several
+Analog of src/integrators/misc/multichannel.cpp (run several
 sub-integrators and write a multi-layer result): the wavefront evaluates
 every requested channel per ray batch — the AOVs reuse the primary
 intersection, so the extra channels are nearly free.

@@ -1,12 +1,12 @@
 """Wavefront MIS path tracer.
 
-TPU-native counterpart of the reference's `path` plugin — the canonical loop
+Counterpart of the reference's `path` plugin — the canonical loop
 at src/integrators/path/path.cpp:119-280: intersect, add emitted radiance
 (MIS-weighted against NEE), next-event estimation with power-heuristic MIS
 (:176-263), BSDF sampling, Russian roulette with eta^2-scaled throughput
 (:276+). Here the loop is a lax.fori_loop over bounces with the whole ray
 batch live and active-lane masks instead of per-ray early exits — the SIMD
-wavefront is the TPU analog of the reference's SSE packets
+wavefront is the batched analog of the reference's SSE packets
 (skdtree.cpp:241), widened from 4 lanes to the full batch.
 
 Sampler dims: 4 are consumed by the sensor (common.py); each bounce consumes

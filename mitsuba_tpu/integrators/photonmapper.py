@@ -1,6 +1,6 @@
 """Classic two-map photon mapper (Jensen).
 
-TPU-native analog of src/integrators/photonmapper/photonmapper.cpp: one
+Analog of src/integrators/photonmapper/photonmapper.cpp: one
 big photon shooting pass builds TWO maps split by path class
 (gatherproc.h ECausticPhotons / ESurfacePhotons):
 
@@ -13,7 +13,7 @@ big photon shooting pass builds TWO maps split by path class
 Direct illumination and the first specular chain come from the analytic
 camera pass shared with SPPM (emitted light + NEE). The reference's
 balanced kd-tree + kNN lookups become the wavefront spatial hash of
-ops/hashgrid.py with a fixed scene-scaled radius (the TPU redesign:
+ops/hashgrid.py with a fixed scene-scaled radius (the batched redesign:
 fixed-radius density estimation instead of kNN — kNN's per-query
 variable work is lockstep-hostile; radius control is the
 `radius_scale` knob). Biased like the original; SPPM remains the

@@ -1,6 +1,6 @@
 """Primary-sample-space Metropolis light transport (Kelemen-style).
 
-TPU-native analog of src/integrators/pssmlt (two-stage bootstrap at
+Analog of src/integrators/pssmlt (two-stage bootstrap at
 pssmlt.cpp:331-335, Kelemen small/large mutations in pssmlt_sampler.cpp,
 seed work units in pssmlt_proc.cpp:91): instead of a handful of
 long chains farmed to workers, we run tens of thousands of SHORT chains in
@@ -67,7 +67,7 @@ def _eval(scene, cam, cfg, u):
     stream = VectorStream(u)
     color = pathlib.li(scene, cam, o, d, stream, cfg) * imp[:, None]
     color = jnp.nan_to_num(color, nan=0.0, posinf=0.0, neginf=0.0)
-    lum = color @ LUM
+    lum = jnp.matmul(color, LUM, precision=jax.lax.Precision.HIGHEST)
     xi = jnp.clip(px.astype(jnp.int32), 0, w - 1)
     yi = jnp.clip(py.astype(jnp.int32), 0, h - 1)
     return color, lum, yi * w + xi

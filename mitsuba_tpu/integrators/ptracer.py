@@ -1,7 +1,7 @@
 """Adjoint particle tracer: random walks from the emitters, splatted to the
 sensor.
 
-TPU-native analog of src/integrators/ptracer (CaptureParticleWorker over
+Analog of src/integrators/ptracer (CaptureParticleWorker over
 ParticleTracer, particleproc.h:128): emitter-sampled light paths carry
 power; every vertex connects to the pinhole camera with a visibility ray
 and splats f * G * W_e onto the film. The wavefront is a fixed-depth

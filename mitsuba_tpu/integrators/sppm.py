@@ -1,7 +1,7 @@
 """Stochastic progressive photon mapping + the fork's adaptive (CPPM)
 radius strategies.
 
-TPU-native analog of src/integrators/sppm/sppm.cpp and the fork's
+Analog of src/integrators/sppm/sppm.cpp and the fork's
 SPPMFramework<GatherPoint> family (src/integrators/cppm/cppm_framework.h:35,
 strategy variants cppm0-3.cpp): per pass,
 

@@ -1,6 +1,6 @@
 """Wavefront volumetric path tracer (homogeneous scene-global medium).
 
-TPU-native analog of src/integrators/path/volpath_simple.cpp: per bounce,
+Analog of src/integrators/path/volpath_simple.cpp: per bounce,
 sample a free-flight distance against the medium; lanes with a medium event
 do phase-function NEE + scattering, surface lanes do the usual BSDF NEE +
 sampling (path.cpp structure). Both event kinds advance in the same

@@ -1,6 +1,6 @@
 """Virtual point light renderer — the interactive-preview workhorse.
 
-TPU-native analog of the reference's VPL machinery: generateVPLs' random
+Analog of the reference's VPL machinery: generateVPLs' random
 walk (src/librender/vpl.cpp:76) is the LVC-BPT light-cache builder, and the
 GPU preview's per-VPL accumulation (src/mtsgui/preview.h:73-77, integrator
 plugin src/integrators/vpl/vpl.cpp) becomes: one eye hit per pixel, then M

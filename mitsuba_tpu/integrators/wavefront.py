@@ -38,16 +38,20 @@ RAY_EPS = 1e-3
 
 
 def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
-           compact: bool = False, fuse: bool | None = None) -> jax.Array:
+           compact: bool = False, fuse: bool = False) -> jax.Array:
     """Full-frame render -> (H, W, 3). Jit-compatible; primal only.
 
-    compact=True (fused big-mesh path only): two-phase loop — when the
-    busy-lane count falls to n/4 (the measured ~28% occupancy plateau:
-    pixels whose paths run deep keep the full-width per-step VPU
-    machinery busy for ~16 more steps), the live lanes are gathered
-    into a quarter-width continuation loop. Same estimator and sample
-    streams (lanes carry their pixel ids; the film becomes a
-    scatter-add), float film reduction order may differ."""
+    fuse=True defers each NEE shadow ray into the next step's
+    trace.closest_and_any call (same estimator). Every intersection route
+    decomposes that call into the two standard queries.
+
+    compact=True (takes effect only with fuse=True and >= 4096 lanes):
+    when the busy-lane count falls below successive halvings of the
+    width, the live lanes are gathered into narrower continuation loops,
+    so paths that run deep do not keep the full-width per-step machinery
+    busy. Same estimator and sample streams (lanes carry their pixel ids;
+    the film becomes a scatter-add), float film reduction order may
+    differ."""
     from ..models import sensor as sensorlib
 
     w, h = cam.width, cam.height
@@ -58,16 +62,6 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
     families = scene.bsdf_families
     seed = jnp.uint32(cfg.seed)
 
-    # Shadow-ray deferral pays only where the fused binned dispatch
-    # exists (TPU big-mesh path); on the brute/BVH backends the fallback
-    # decomposes anyway, so the extra while-carry state and final
-    # resolve iteration are pure cost (Cornell measured ~4%). Static
-    # per-compile: cluster presence is part of the scene pytree struct.
-    if fuse is None:
-        fuse = scene.clusters is not None and jax.default_backend() != "cpu"
-    # (fuse=True on the CPU backend is valid — trace.closest_and_any
-    # decomposes into the two standard calls there — and is what lets
-    # tests exercise the deferral + compaction-ladder logic off-TPU)
     pixel = jnp.tile(jnp.arange(npix, dtype=jnp.uint32), (lanes_per_pixel,))
     lane_slot = jnp.repeat(
         jnp.arange(lanes_per_pixel, dtype=jnp.uint32), npix
@@ -103,10 +97,9 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
         eta_scale=jnp.ones((n,)),
     )
     if fuse:
-        # deferred NEE shadow ray from the PREVIOUS step's shade point:
-        # tracing it fuses with this step's closest-hit batch into ONE
-        # intersector dispatch (trace.closest_and_any), halving the
-        # per-dispatch fixed cost the wavefront pays per step.
+        # deferred NEE shadow ray from the PREVIOUS step's shade point,
+        # traced together with this step's closest-hit batch
+        # (trace.closest_and_any)
         state0.update(
             pend=jnp.zeros((n,), bool),
             pend_o=jnp.zeros((n, 3)),
@@ -132,10 +125,8 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
                             SENSOR_DIMS + t * DIMS_PER_BOUNCE + k)
 
         if fuse:
-            # fused dispatch: this step's closest batch + last step's
-            # shadow batch; retired lanes trace tmax=0 rays (the
-            # signature sort packs them into dummy tiles, so the
-            # straggler tail is ~free)
+            # one call for this step's closest batch + last step's
+            # shadow batch; retired lanes trace tmax=0 rays
             tmax_c = jnp.where(lane_live, jnp.float32(3e37), 0.0)
             its, blocked = trace.closest_and_any(
                 scene, o, d, tmax_c,
@@ -276,9 +267,9 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
         # compaction ladder: run each stage while the busy count
         # exceeds the next (halved) width, then gather the busy lanes
         # (pixel ids ride in the state) into the narrower continuation
-        # — the measured occupancy plateau/tail otherwise pays
-        # full-width per-step VPU machinery. Stages share the one step
-        # function; the film becomes a scatter-add.
+        # — the occupancy tail otherwise pays full-width per-step
+        # machinery. Stages share the one step function; the film
+        # becomes a scatter-add.
         def busy_of(s):
             b = s["done"] < spp_lane
             return (b | s["pend"]) if fuse else b

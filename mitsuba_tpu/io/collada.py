@@ -1,6 +1,6 @@
 """COLLADA (.dae) geometry importer.
 
-TPU-native analog of the reference converter (src/converter/collada.cpp
+Analog of the reference converter (src/converter/collada.cpp
 + mtsimport.cpp): where the reference links Assimp/OpenCOLLADA and walks
 the full DOM, this parses the XML directly (stdlib ElementTree) for the
 geometry subset that matters to rendering — <library_geometries> meshes

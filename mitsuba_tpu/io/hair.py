@@ -8,7 +8,7 @@ Two encodings:
     actual position follows in the next three floats).
 
 Returns a list of (V_i, 3) float32 polylines (one per fiber). The shape
-layer tessellates them into triangle tubes — the TPU-native replacement
+layer tessellates them into triangle tubes — the batched replacement
 for the reference's analytic cylinder kd-tree (HairKDTree, hair.cpp:109).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Image I/O: EXR / PFM / PNG / NPY read+write.
 
-TPU-native framework's analog of the reference Bitmap I/O layer
+The framework's analog of the reference Bitmap I/O layer
 (include/mitsuba/core/bitmap.h:170-261 — PNG/EXR/RGBE/PFM/PPM/...; the
 fork's numpy .npy output in src/films/mfilm.cpp:25,347 via embedded cnpy).
 No OpenEXR bindings in this environment, so EXR is implemented directly:

@@ -1,6 +1,6 @@
 """Triangle mesh loaders: OBJ, PLY (ascii + binary_little_endian).
 
-TPU-native framework's analog of the reference shape plugins
+The framework's analog of the reference shape plugins
 src/shapes/obj.cpp (wavefront OBJ with per-face v/vt/vn indexing and
 polygon fan triangulation) and src/shapes/ply.cpp. Loads into flat numpy
 arrays ready for scene/ir.build_scene — uniquifying (v, vt, vn) index

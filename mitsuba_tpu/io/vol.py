@@ -69,7 +69,7 @@ def read_hgrid(dict_path, prefix, postfix=".vol"):
 
     Returns (block_table (BZ,BY,BX) int32, -1 = empty cell,
     block_data (NB, bz, by, bx) float32, box_min, box_max). All blocks
-    must share one resolution (the TPU layout stacks them into a single
+    must share one resolution (the device layout stacks them into a single
     gatherable array; mixed-resolution dictionaries are rejected)."""
     import os
 

@@ -1,6 +1,6 @@
 """BSDF framework: masked SIMD dispatch over material families.
 
-TPU-native replacement for the reference's BSDF plugin hierarchy
+Replacement for the reference's BSDF plugin hierarchy
 (include/mitsuba/render/bsdf.h:215, sample/eval/pdf at bsdf.h:369-440 and
 src/bsdfs/*): instead of virtual dispatch per intersection, every ray batch
 gathers its material record into a ShadePoint SoA and each BSDF *family
@@ -49,8 +49,7 @@ class ShadePoint(NamedTuple):
 def gather_shade_point(scene, mat: jax.Array, uv: jax.Array,
                        u_blend=None, aux=None) -> ShadePoint:
     """Gather material rows for each ray; resolve reflectance textures.
-    Routed through the one-hot matmul fetch (ops/gather.py) — the material
-    table is tiny and the MXU beats row gathers by ~20x on TPU.
+    One packed row gather (ops/gather.py) fetches every material field.
 
     Blend/mixture adapters (src/bsdfs/{blendbsdf,mixturebsdf}.cpp) resolve
     stochastically here: a BLEND row redirects to child A with probability

@@ -1,6 +1,6 @@
 """Irawan-Marschner woven cloth BRDF (src/bsdfs/irawan.{h,cpp}, 696+400 LoC).
 
-TPU-native redesign: the reference wraps a per-intersection virtual eval
+Redesign: the reference wraps a per-intersection virtual eval
 around pooled WeavePattern objects; here the weave patterns live in
 dense padded device tables (ClothTables) and the whole model is two
 batched stages that slot into the masked-SIMD BSDF dispatch:
@@ -35,7 +35,7 @@ import re
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from ..core import math as m
 from ..core.rng import hash_u32

@@ -1,6 +1,6 @@
 """Emitter sampling: area lights (emissive triangles) + constant environment.
 
-TPU-native analog of Scene::sampleEmitterDirect / pdfEmitterDirect
+Analog of Scene::sampleEmitterDirect / pdfEmitterDirect
 (include/mitsuba/render/scene.h:482-886) and the area emitter plugin
 (src/emitters/area.cpp): NEE draws an emissive triangle from a luminance-
 weighted CDF, a uniform point on it, and converts the area pdf to solid
@@ -162,7 +162,7 @@ def sample_direct(scene, ref_p: jax.Array, u3: jax.Array) -> DirectSample:
         em.tri_cdf.shape[0] - 1,
     ).astype(jnp.int32)
     p0_all, e1_all, e2_all = scene.tri_vertices()
-    # per-emissive-triangle table (tiny), fetched with one matmul
+    # per-emissive-triangle table (tiny), fetched with one gather
     (p0t, e1t, e2t, radt, selt) = fetch_packed(
         [
             p0_all[em.tri_index],

@@ -1,7 +1,7 @@
 """Microfacet distributions (Beckmann + GGX), anisotropic, with Smith
 shadowing and GGX visible-normal (VNDF) sampling.
 
-TPU-native analog of the reference's MicrofacetDistribution
+Analog of the reference's MicrofacetDistribution
 (src/bsdfs/microfacet.h: EBeckmann/EGGX, eval/sample/pdf/smithG1, the
 sampleVisible=true path at microfacet.h:sampleVisible). All functions are
 batched over local-frame directions; the distribution code is a per-ray
@@ -11,7 +11,7 @@ microfacet.h's (alphaU, alphaV) convention (tangent-frame x/y roughness).
 Sampling policy: GGX uses Heitz's VNDF sampling (exact visible-normal
 distribution — the reference's sampleVisible default); Beckmann uses
 classic D*cos sampling (the reference's sampleVisible=false fallback;
-Beckmann VNDF needs slope-space erf inversion with poor VPU behavior).
+Beckmann VNDF needs slope-space erf inversion with poor batched behavior).
 `pdf` always matches whichever sampler `sample` uses.
 """
 from __future__ import annotations

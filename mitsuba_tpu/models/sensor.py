@@ -1,6 +1,6 @@
 """Sensors: batched primary-ray generation.
 
-TPU-native analog of Sensor::sampleRay / PerspectiveCamera
+Analog of Sensor::sampleRay / PerspectiveCamera
 (include/mitsuba/render/sensor.h:66,393,492, src/sensors/perspective.cpp):
 a sensor is a pure function (pixel coords + aperture sample) -> rays.
 Implemented: perspective, thinlens (depth of field), orthographic,
@@ -13,7 +13,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from ..core import math as m
 from ..core import warp
@@ -46,6 +46,12 @@ class Camera:
     height: int = struct.field(pytree_node=False, default=256)
     kind: int = struct.field(pytree_node=False, default=SENSOR_PERSPECTIVE)
     near: float = struct.field(pytree_node=False, default=1e-2)
+
+
+def _matmul(a, b):
+    """Full float32 product: a reduced-precision matmul mode (TF32) would
+    shift camera rays by ~1e-3."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def look_at(origin, target, up=(0.0, 1.0, 0.0)) -> np.ndarray:
@@ -184,14 +190,17 @@ def sample_rays(cam: Camera, px: jax.Array, py: jax.Array, u_lens: jax.Array):
         r1 = m.normalize(m01[:, :, 1] - r0 * m.dot(m01[:, :, 1], r0,
                                                    keepdims=True))
         r2 = jnp.cross(r0, r1)
-        o = (o_cam[:, None, :] @ jnp.stack([r0, r1, r2], -1).transpose(
-            0, 2, 1)).squeeze(1) + m01[:, :, 3]
-        d = m.normalize((d_cam[:, None, :] @ jnp.stack(
-            [r0, r1, r2], -1).transpose(0, 2, 1)).squeeze(1))
+        # camera -> world with the per-ray frame (columns r0, r1, r2),
+        # as explicit float32 sums
+        def to_world(v):
+            return v[:, 0:1] * r0 + v[:, 1:2] * r1 + v[:, 2:3] * r2
+
+        o = to_world(o_cam) + m01[:, :, 3]
+        d = m.normalize(to_world(d_cam))
         return o, d, imp
     rot = cam.to_world[:3, :3]
-    o = o_cam @ rot.T + cam.to_world[:3, 3]
-    d = m.normalize(d_cam @ rot.T)
+    o = _matmul(o_cam, rot.T) + cam.to_world[:3, 3]
+    d = m.normalize(_matmul(d_cam, rot.T))
     return o, d, imp
 
 
@@ -201,7 +210,7 @@ def world_to_raster(cam: Camera, p: jax.Array):
     importance) — importance is the W_e factor for particle tracing."""
     rot = cam.to_world[:3, :3]
     trans = cam.to_world[:3, 3]
-    p_cam = (p - trans) @ rot  # rot is orthonormal: inverse = transpose
+    p_cam = _matmul(p - trans, rot)  # rot is orthonormal: inverse = transpose
     z = p_cam[..., 2]
     valid = z > cam.near
     zs = jnp.where(valid, z, 1.0)
@@ -240,7 +249,7 @@ def ray_differentials(cam: Camera, d: jax.Array):
     aspect = h / w
     rot = cam.to_world[:3, :3]
     # unnormalized camera-space direction, rescaled to the z=1 plane
-    d_cam = d @ rot                       # R^T d (columns orthonormal)
+    d_cam = _matmul(d, rot)               # R^T d (columns orthonormal)
     v = d_cam / jnp.maximum(d_cam[..., 2:3], 1e-8)
     dv_dx = jnp.asarray([2.0 * 1.0 / w, 0.0, 0.0]) * tan_half
     dv_dy = jnp.asarray([0.0, -2.0 * 1.0 / h * aspect, 0.0]) * tan_half
@@ -254,4 +263,4 @@ def ray_differentials(cam: Camera, d: jax.Array):
 
     ddx_cam = dnorm(v, dv_dx)
     ddy_cam = dnorm(v, dv_dy)
-    return ddx_cam @ rot.T, ddy_cam @ rot.T
+    return _matmul(ddx_cam, rot.T), _matmul(ddy_cam, rot.T)

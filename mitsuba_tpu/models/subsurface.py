@@ -1,12 +1,12 @@
 """Dipole subsurface scattering (Jensen et al. 2001).
 
-TPU-native analog of src/subsurface/dipole.cpp: the reference caches
+Analog of src/subsurface/dipole.cpp: the reference caches
 irradiance at surface sample points in an octree (irrtree) and gathers the
 dipole diffusion kernel Rd(r) over it. Here the irradiance cache is a flat
 batch of area-weighted surface points whose irradiance is computed in one
 wavefront NEE pass, and the render-time gather is a dense (pixels x points)
 one-hot-free contraction for small caches — dense matmul-style sums are
-faster on TPU than spatial culling until the cache is large, at which point
+faster than spatial culling until the cache is large, at which point
 the hash grid (ops/hashgrid.py) takes over.
 
 Dipole BSSRDF (classic better-dipole-free formulation):

@@ -1,6 +1,6 @@
 """Procedural sun / sky / sunsky emitters (analytic daylight models).
 
-TPU-native analog of src/emitters/{sky,sun,sunsky}.cpp: like the
+Analog of src/emitters/{sky,sun,sunsky}.cpp: like the
 reference, the procedural model is *baked into a lat-long environment
 map* at scene-build time (sky.cpp configure() renders the model into a
 bitmap at `resolution`), so at render time the sky is ordinary envmap

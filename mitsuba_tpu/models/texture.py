@@ -1,6 +1,6 @@
 """Texture lookup over the scene's padded texture stack.
 
-TPU-native replacement for the texture plugins (src/textures/{bitmap.cpp,
+Replacement for the texture plugins (src/textures/{bitmap.cpp,
 checkerboard.cpp,gridtexture.cpp,...} + the EWA mipmap, mipmap.h:91): all
 bitmaps live in one (K, TH, TW, 3) array so a per-ray lookup is a single
 gather; procedural checkerboard/grid textures are expressed as tiny
@@ -120,7 +120,7 @@ def _ewa(scene, tid, uv, duvdx, duvdy):
     """Fixed-tap EWA anisotropic filtering (mipmap.h:161 evalEWA).
 
     The reference integrates a Gaussian over the exact texel ellipse with
-    a data-dependent loop; a TPU wavefront wants static shapes, so this
+    a data-dependent loop; a wavefront wants static shapes, so this
     uses the hardware-anisotropic formulation: EWA_TAPS Gaussian-weighted
     trilinear probes along the ellipse MAJOR axis at the lod set by the
     clamped MINOR axis — the same filter family, O(1) compile shape.

@@ -1,6 +1,6 @@
 """Utility runner: `python -m mitsuba_tpu.mtsutil <tool> ...`.
 
-TPU-native analog of the reference's `mtsutil` plugin runner
+Analog of the reference's `mtsutil` plugin runner
 (src/mitsuba/mtsutil.cpp) with the utilities from src/utils/:
   kdbench    — rays/second benchmark (kdbench.cpp:35-66)
   tonemap    — HDR -> LDR conversion (tonemap.cpp)
@@ -32,12 +32,9 @@ def tool_kdbench(argv):
 
     if args.scene:
         scene, _, _, _ = xmllib.load_xml(args.scene)
-        if scene.num_triangles > 4096:
-            from .scene import bvh as bvhlib
-            scene = bvhlib.attach(scene)
+        scene = trace.with_bvh_if_walked(scene)
     else:
         scene, _ = builtin.cornell_box()
-    float(jnp.zeros(()).sum())
 
     # uniform rays through the scene bounding sphere (kdbench.cpp protocol)
     lo = jnp.min(scene.vertices, 0)

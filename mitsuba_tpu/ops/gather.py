@@ -1,41 +1,26 @@
-"""Table-row fetch tuned for TPU.
+"""Table-row fetch for shading data.
 
-Dynamic row gathers (`table[idx]`) are an order of magnitude slower on TPU
-than a one-hot matmul against the table when the table is small — the MXU
-acts as the gather engine (measured: 1.6 ms vs 20-40 ms for 0.5M fetches
-from a 64-row table). All shading-data fetches route through `fetch_rows`,
-which picks the one-hot path for tables up to ONE_HOT_MAX rows and falls
-back to native gathers for big tables (BVH-scale meshes).
+All per-hit table fetches (materials, emitters, face vertices) route
+through `fetch_rows`, a plain row gather. `fetch_packed` concatenates
+several tables that share an index so one gather serves them all.
 
-Differentiability: the one-hot matmul is linear in the table, so gradients
-flow to table entries exactly like a gather's would.
+Differentiability: a gather's gradient scatters the cotangent rows back
+onto the table entries that were read.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-# (N, ONE_HOT_MAX) one-hot intermediates stay < ~300 MB for wavefronts of
-# ~0.5M rays; beyond this the memory/computation tradeoff flips.
-ONE_HOT_MAX = 256
-
 
 def fetch_rows(table: jax.Array, idx: jax.Array) -> jax.Array:
     """table: (T, K) float32; idx: (N,) int32 -> (N, K)."""
-    t = table.shape[0]
-    if t <= ONE_HOT_MAX:
-        oh = (idx[:, None] == jnp.arange(t, dtype=idx.dtype)[None, :]).astype(
-            table.dtype
-        )
-        # HIGHEST: 6-pass bf16 decomposition reconstructs f32 products of a
-        # one-hot (exact 1.0) against the table to ~1 ulp
-        return jax.lax.dot(oh, table, precision=jax.lax.Precision.HIGHEST)
     return table[idx]
 
 
 def fetch_packed(tables: list, idx: jax.Array) -> list:
     """Fetch rows of several (T, k_i) tables at the same indices with ONE
-    matmul; returns the per-table slices."""
+    gather; returns the per-table slices."""
     widths = [tab.shape[1] for tab in tables]
     packed = jnp.concatenate(tables, axis=1)
     out = fetch_rows(packed, idx)

@@ -1,10 +1,10 @@
 """Uniform hash grid for photon / point queries.
 
-TPU-native replacement for the reference's balanced point kd-tree photon map
+Replacement for the reference's balanced point kd-tree photon map
 (include/mitsuba/render/photonmap.h:36, kNN/radius queries :98-133): a
-kd-tree's pointer-chasing kNN is hostile to the VPU, so photons are instead
-binned into a spatial hash, sorted by cell hash (one argsort — TPU sorts
-are fast), and range queries walk the 27 neighbor cells with fixed-size
+kd-tree's pointer-chasing kNN is hostile to lockstep batches, so photons
+are instead binned into a spatial hash, sorted by cell hash (one
+argsort), and range queries walk the 27 neighbor cells with fixed-size
 windows into the sorted array. Everything is dense, masked, and divergence-
 free; hash collisions only add candidates that the radius test rejects.
 """

@@ -1,4 +1,4 @@
-"""Specular manifold walk — the TPU-native SpecularManifold.
+"""Specular manifold walk — the batched SpecularManifold.
 
 Reference: include/mitsuba/bidir/manifold.h:35 (SpecularManifold),
 src/libbidir/manifold.cpp (1000 LoC: init/move/update + the generalized
@@ -12,7 +12,7 @@ and solving the block-tridiagonal system with a bespoke LU
 
   * N chains advance in lockstep (one batched Newton iteration per
     `lax.while_loop` step — divergent per-path iteration counts become
-    masked lanes, the TPU-friendly shape);
+    masked lanes, the batch-friendly shape);
   * the chain transfer Jacobian comes from `jax.jvp` through a
     *fixed-triangle* differentiable re-trace of the whole specular chain
     (deterministic reflect/refract + ray/plane intersection), so the

@@ -1,6 +1,6 @@
 """Multi-device / multi-host parallel rendering.
 
-TPU-native replacement for the reference's Scheduler + RemoteWorker fabric
+Replacement for the reference's Scheduler + RemoteWorker fabric
 (src/libcore/sched.cpp, sched_remote.cpp — work units over TCP/SSH): here
 parallelism is SPMD over a `jax.sharding.Mesh`. The film is data-parallel
 over pixels ("dp"), samples-per-pixel can be split over a second axis
@@ -13,6 +13,7 @@ from .render_sharded import (  # noqa: F401
     make_mesh,
     render_sharded_jit,
     train_step,
+    train_step_jit,
 )
 
 # NOTE: `render_sharded` (the function) would shadow the submodule of the

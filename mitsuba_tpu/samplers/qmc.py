@@ -1,6 +1,6 @@
 """Sampler family: independent, stratified, Halton, (0,2) low-discrepancy.
 
-TPU-native analog of the reference's sampler plugins
+Analog of the reference's sampler plugins
 (src/samplers/{independent,stratified,halton,hammersley,ldsampler,sobol}.cpp
 and the QMC primitives in include/mitsuba/core/qmc.h:43-119). Every sampler
 here is a *pure function* of (seed, pixel, sample-index, dimension) — no
@@ -182,9 +182,11 @@ def sample_dim(kind: int, seed, pixel, sample, dim, spp: int = 0) -> jax.Array:
             ds.append((n0 % b).astype(jnp.float32))
             n0 = n0 // b
         digits = jnp.stack(ds, -1)                            # (N, D)
-        y = jnp.mod(digits @ c, float(b))                     # (N, D)
+        y = jnp.mod(jnp.matmul(digits, c, precision=jax.lax.Precision.HIGHEST),
+                    float(b))                     # (N, D)
         w = (1.0 / b) ** jnp.arange(1, 17, dtype=jnp.float32)
-        v = jnp.minimum(y @ w, 1.0 - 1e-7)
+        v = jnp.minimum(jnp.matmul(y, w, precision=jax.lax.Precision.HIGHEST),
+                        1.0 - 1e-7)
         rot = u32_to_uniform(hash_u32(seed, pixel, jnp.uint32(0xFA4E), dim))
         return jnp.mod(v + rot, 1.0)
 

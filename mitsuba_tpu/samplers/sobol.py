@@ -1,6 +1,6 @@
 """High-dimensional Sobol' direction numbers + Faure digit permutations.
 
-TPU-native analog of the reference's Sobol' sampler
+Analog of the reference's Sobol' sampler
 (src/samplers/sobol.cpp + the 108k-line direction-number tables in
 src/libcore/sobolseq.cpp) and the Faure QMC construction. The reference
 ships the Joe-Kuo initialization tables verbatim; those are data files we
@@ -15,7 +15,7 @@ far above falling back to the (0,2) pair for every dimension.
 
 All tables are host-side numpy, baked into the jitted program as
 constants (dimensions are static in the integrators), so sampling is
-pure VPU bit math with no device-side gathers.
+pure integer bit math with no device-side gathers.
 """
 from __future__ import annotations
 

@@ -287,7 +287,7 @@ def sphere_shadow(nu=72, nv=72, radius=0.25, width=20, height=20,
     floor, camera underneath the sphere looking at the floor — the image
     sees the sphere's SHADOW but not the sphere, so d(image)/d(sphere
     translation) is a pure visibility-boundary gradient through a
-    clustered (binned-intersector) mesh. Returns (scene, cam,
+    BVH-attached mesh. Returns (scene, cam,
     sphere_vertex_rows).
 
     Analog scale to the reference's kdtree-era shadow benchmarks; no

@@ -1,6 +1,6 @@
 """Lat-long environment emitter with 2D CDF importance sampling.
 
-TPU-native analog of src/emitters/envmap.cpp: the reference importance-
+Analog of src/emitters/envmap.cpp: the reference importance-
 samples the luminance-weighted lat-long bitmap via hierarchical 2D sample
 warping; here we precompute a marginal row CDF + per-row conditional CDFs
 (host side) and sample with two batched searchsorteds — O(log n) gathers,
@@ -15,7 +15,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from ..core import math as m
 

@@ -3,7 +3,7 @@
 This replaces the reference's object graph — Scene owning Shape/BSDF/Emitter
 plugin instances (include/mitsuba/render/scene.h:49, shape.h:178,
 bsdf.h:215, emitter.h:443) — with dense arrays + integer type codes, which
-is the TPU-native representation: every per-ray query becomes a gather from
+is the batched representation: every per-ray query becomes a gather from
 these tables, and the whole scene is a differentiable pytree (gradients flow
 to vertices, albedos, roughness, emitted radiance automatically).
 
@@ -21,7 +21,7 @@ from typing import Any, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..core import struct
 
 from ..core import math as m
 
@@ -242,11 +242,8 @@ class Scene:
     # LOD driver (footprint * density * resolution = texels per pixel)
     tri_uv_density: Any = None
 
-    # Acceleration structure (None = brute-force VPU path; scene/bvh.py)
+    # Acceleration structure (None = brute force; scene/bvh.py)
     bvh: Any = None
-    # Morton-cluster tables for the TPU binned intersector
-    # (ops/binned_intersect.py; built by scene/bvh.attach)
-    clusters: Any = None
 
     # Environment map emitter (None = constant env_radiance; scene/envmap.py)
     envmap: Any = None

@@ -1,7 +1,7 @@
 """Analytic shape tessellation: rectangle, cube, sphere, disk, cylinder.
 
 The reference keeps spheres/cylinders analytic (src/shapes/sphere.cpp,
-cylinder.cpp); a TPU wavefront wants one homogeneous primitive stream, so
+cylinder.cpp); a wavefront wants one homogeneous primitive stream, so
 analytic shapes become triangle meshes at load time (resolution-controlled,
 with exact vertex normals so shading quality matches the analytic surface).
 src/shapes/{rectangle,cube,disk}.cpp are already flat polygons.
@@ -155,7 +155,7 @@ def apply_transform(mat4: np.ndarray, verts, normals=None):
 
 
 def hair_tubes(strands, radius: float, sides: int = 4):
-    """Tessellate hair polylines into triangle tubes — the TPU-native
+    """Tessellate hair polylines into triangle tubes — the batched
     replacement for the reference's analytic cylinder kd-tree
     (src/shapes/hair.cpp:109 HairKDTree): curves compile to the same
     triangle soup every other shape uses, so the wavefront intersectors

@@ -1,6 +1,6 @@
 """Closed-mesh voxelization for per-shape interior media.
 
-TPU-native replacement for the reference's per-shape interior/exterior
+Replacement for the reference's per-shape interior/exterior
 medium pointers (include/mitsuba/render/medium.h:103, shape.h interior
 medium binding): instead of tracking "which medium am I in" per ray —
 divergent state that breaks SIMD lanes — interior-bound media are

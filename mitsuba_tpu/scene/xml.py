@@ -944,7 +944,7 @@ class _Loader:
             return
         elif typ == "deformable":
             # src/shapes/deformable.cpp: vertex-keyframed mesh; where the
-            # reference builds a space-time kd-tree, the TPU design lerps
+            # reference builds a space-time kd-tree, this design lerps
             # the two topologically identical keyframe meshes at the
             # loader's shutter time (time-binned rendering re-executes
             # the same compiled program per bin — no recompile)
@@ -1135,7 +1135,7 @@ def load_xml(path, defaults: dict | None = None, time: float = 0.0,
     `time` in [0, 1] evaluates animated OBJECT transforms
     (<transform name="toWorldEnd"> on shapes, track.h AnimatedTransform)
     and deformable vertex keyframes at the given shutter time. The
-    TPU-native motion-blur recipe is time-binned rendering (see
+    batched motion-blur recipe is time-binned rendering (see
     cli.py --time-bins): the scene pytree has identical shapes at every
     t, so XLA compiles once and each bin is just another execution.
     """

@@ -1,6 +1,6 @@
 """Adaptive sampling driver (t-test-guided supersampling).
 
-TPU-native analog of src/integrators/misc/adaptive.cpp: the reference
+Analog of src/integrators/misc/adaptive.cpp: the reference
 supersamples 32x32 blocks whose sample mean fails a t-test against the
 configured relative error. Blocks make no sense on a wavefront machine;
 instead every refinement pass picks the K pixels with the widest relative

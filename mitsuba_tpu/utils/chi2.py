@@ -1,6 +1,6 @@
 """Chi-square goodness-of-fit harness for sample()/pdf() consistency.
 
-TPU-native analog of the reference's ChiSquare test harness
+Analog of the reference's ChiSquare test harness
 (include/mitsuba/core/chisquare.h:40-110, used by
 src/tests/test_chisquare.cpp): a warp's `sample` maps uniforms to
 directions; its `pdf` must integrate to the observed histogram. Directions

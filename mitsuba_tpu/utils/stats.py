@@ -5,7 +5,7 @@ cache-line-padded per-core slots (:49,73), ProgressReporter (:287),
 Statistics::printStats (mitsuba.cpp:408) printing the grouped counter
 table at exit.
 
-TPU redesign: the reference pads counters across cores because CPU
+Redesign: the reference pads counters across cores because CPU
 threads contend; here the "cores" are XLA lanes, and per-lane counting
 already happens INSIDE the compiled program as reductions over wavefront
 masks (e.g. path.li_with_stats' exact useful-ray count). So the registry

@@ -1,7 +1,7 @@
 """Worker process for the multi-process (DCN-rehearsal) sharded-render
 test (tests/test_distributed.py). Two of these run side by side, each
 owning 4 virtual CPU devices; jax.distributed + gloo collectives stand in
-for the multi-host ICI/DCN path (SURVEY §4's "do better than the
+for the multi-host path (SURVEY §4's "do better than the
 reference's mtssrv loopback" item).
 
 Usage: python tests/distributed_worker.py <coordinator> <num_procs> <pid>
@@ -14,7 +14,6 @@ os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "")
     + " --xla_force_host_platform_device_count=4"
 )
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_cpu")
 
 import jax
 
@@ -22,6 +21,9 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def main():
+    from mitsuba_tpu import compile_cache
+
+    compile_cache.enable()
     coord, nprocs, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
     jax.distributed.initialize(coordinator_address=coord,
                                num_processes=nprocs, process_id=pid)

@@ -2,7 +2,7 @@
 virtual CPU devices each, jax.distributed + gloo collectives, one global
 ("dp", "sp") mesh — the closest local stand-in for the reference's
 mtssrv cluster mode (src/mitsuba/mtssrv.cpp) and for real multi-host
-TPU pods. Verifies the sharded render is process-count invariant."""
+clusters. Verifies the sharded render is process-count invariant."""
 import os
 import socket
 import subprocess
@@ -80,7 +80,6 @@ def test_two_process_cli_render(tmp_path):
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_cpu")
     procs = [
         subprocess.Popen(
             [sys.executable, "-m", "mitsuba_tpu", str(scene_p), "--cpu",

@@ -1,4 +1,4 @@
-"""Irradiance cache (irrcache.cpp TPU redesign: eager point-cloud cache
+"""Irradiance cache (irrcache.cpp batched redesign: eager point-cloud cache
 with Ward-weight interpolation)."""
 import jax.numpy as jnp
 import numpy as np

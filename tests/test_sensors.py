@@ -117,3 +117,53 @@ def test_irradiancemeter_constant_env():
         scene, cam, direct.li, common.RenderConfig(spp=512, max_depth=2,
                                                    seed=0)))
     assert np.allclose(img, np.pi * L, rtol=2e-2), (img.mean(), np.pi * L)
+
+
+def _perspective_ref(cam_np, fov_x, w, h, px, py):
+    """float64 numpy model of the pinhole camera: film point -> world ray."""
+    sx = 2.0 * px / w - 1.0
+    sy = 1.0 - 2.0 * py / h
+    tan_half = np.tan(0.5 * np.deg2rad(fov_x))
+    d_cam = np.stack([sx * tan_half, sy * tan_half * (h / w),
+                      np.ones_like(sx)], -1)
+    d_cam /= np.linalg.norm(d_cam, axis=-1, keepdims=True)
+    rot = cam_np[:3, :3].astype(np.float64)
+    d = d_cam @ rot.T
+    o = np.broadcast_to(cam_np[:3, 3].astype(np.float64), d.shape)
+    return o, d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def test_camera_rays_match_float64_reference():
+    """Camera rays agree with a float64 model to 1e-6: the camera
+    transform is a full-precision float32 product (a reduced-precision
+    matmul mode would be off by ~1e-3)."""
+    w, h = 96, 64
+    cam = sensorlib.make_camera([0.3, 1.1, 4.0], [0.1, 0.9, 0.0],
+                                fov_x=42.0, width=w, height=h)
+    rs = np.random.RandomState(0)
+    px = rs.uniform(0, w, 4096).astype(np.float32)
+    py = rs.uniform(0, h, 4096).astype(np.float32)
+    o, d, imp = sensorlib.sample_rays(cam, jnp.asarray(px), jnp.asarray(py),
+                                      jnp.zeros((4096, 2)))
+    o_ref, d_ref = _perspective_ref(np.asarray(cam.to_world), 42.0, w, h,
+                                    px.astype(np.float64),
+                                    py.astype(np.float64))
+    np.testing.assert_allclose(np.asarray(d), d_ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(o), o_ref, rtol=0, atol=1e-6)
+    assert np.all(np.asarray(imp) == 1.0)
+
+
+def test_world_to_raster_inverts_camera_rays():
+    """world_to_raster (light tracing's projection) maps points on camera
+    rays back to their pixel coordinates."""
+    w, h = 64, 48
+    cam = sensorlib.make_camera([0.0, 1.0, 3.0], [0.0, 1.0, 0.0],
+                                fov_x=50.0, width=w, height=h)
+    rs = np.random.RandomState(1)
+    px = jnp.asarray(rs.uniform(1, w - 1, 512).astype(np.float32))
+    py = jnp.asarray(rs.uniform(1, h - 1, 512).astype(np.float32))
+    o, d, _ = sensorlib.sample_rays(cam, px, py, jnp.zeros((512, 2)))
+    qx, qy, valid, _ = sensorlib.world_to_raster(cam, o + 2.5 * d)
+    assert np.asarray(valid).all()
+    np.testing.assert_allclose(np.asarray(qx), np.asarray(px), atol=1e-3)
+    np.testing.assert_allclose(np.asarray(qy), np.asarray(py), atol=1e-3)

@@ -62,6 +62,24 @@ def test_train_step_runs_and_reduces_loss(cornell16):
     assert losses[-1] < losses[0], losses
 
 
+def test_train_step_jit_equals_jitted_train_step(cornell16):
+    """train_step_jit (compiled with TRAIN_COMPILER_OPTIONS) computes what
+    a plain jit of train_step computes (cam and target are arguments
+    there and constants here: only float rounding differs)."""
+    scene, cam = cornell16
+    cfg = common.RenderConfig(spp=4, max_depth=2, seed=1)
+    mesh = rs.make_mesh(4, sp=2)
+    target = jnp.zeros((16, 16, 3)) + 0.05
+    new_a, loss_a = jax.jit(
+        lambda s: rs.train_step(s, cam, target, path.li, cfg, mesh))(scene)
+    new_b, loss_b = rs.train_step_jit(scene, cam, target, path.li, cfg, mesh)
+    np.testing.assert_allclose(float(loss_b), float(loss_a), rtol=1e-5)
+    for a, b in zip(jax.tree_util.tree_leaves(new_a),
+                    jax.tree_util.tree_leaves(new_b)):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=1e-5,
+                                   atol=1e-6)
+
+
 def test_graft_entry():
     import __graft_entry__ as ge
 

@@ -332,164 +332,10 @@ def test_primary_silhouette_gradient():
     # higher-variance than length-uniform sampling (measured 5-seed
     # std 0.015 vs 0.004 — on 11 edges there is nothing to importance-
     # sample, the reweighting only perturbs allocation; at mesh scale
-    # the CDF is what makes edge sampling tractable, see
-    # tools/probe_boundary_meshscale.py --curve-only and BASELINE.md r5)
+    # the CDF is what makes edge sampling tractable, see BASELINE.md r5)
     g = np.mean([float(jax.grad(loss)(0.0, s))
                  for s in (3, 11, 19, 27, 35)])
     assert abs(g - fd) < 0.15 * abs(fd), (g, fd)
-
-
-def _binned_cpu_patches():
-    """Force the binned (Morton-cluster) intersector + interpret-mode
-    Pallas on the CPU backend, where the trace policy would otherwise
-    pick the BVH walk — the big-mesh differentiability harness
-    (VERDICT r4 item 2 / weak #3)."""
-    from unittest import mock
-
-    import jax.experimental.pallas as plmod
-
-    from mitsuba_tpu.ops import binned_intersect as bi
-    from mitsuba_tpu.ops import trace
-
-    orig = plmod.pallas_call
-
-    def interp_call(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    return [
-        mock.patch.object(plmod, "pallas_call", interp_call),
-        mock.patch.object(
-            trace, "closest_hit",
-            lambda s, o, d, tmax=None: bi.closest_hit(s, s.clusters, o, d,
-                                                      tmax)),
-        mock.patch.object(
-            trace, "any_hit",
-            lambda s, o, d, tmax: bi.any_hit(s, s.clusters, o, d, tmax)),
-    ]
-
-
-@pytest.mark.slow
-def test_meshscale_boundary_gradient_binned():
-    """VERDICT r4 item 2 at MESH SCALE: blocker-translation gradient on
-    the 10,372-tri clustered UV-sphere fixture (builtin.sphere_shadow),
-    with the binned intersector dispatching every trace (interpret-mode
-    Pallas on CPU), within 10% of FD. Clusters/BVH are HOST-built, so
-    the FD side rebuilds them per evaluation point; the AD side
-    perturbs vertices on top of theta0's tables (the search is detached
-    — binned_intersect._dispatch_tiles; interior + boundary terms flow
-    through scene.vertices). Measured (probe_boundary_meshscale):
-    g=0.471 vs fd=0.497, 5.3% over 3 seeds."""
-    from mitsuba_tpu.scene import builtin, bvh as bvhlib
-
-    scene0, cam, rows = builtin.sphere_shadow(attach_bvh=False)
-    assert scene0.num_triangles >= 10_000
-    theta0, eps = 0.2, 0.04
-    cfg_fd = common.RenderConfig(spp=48, max_depth=2, seed=7)
-
-    def scene_at(theta):
-        s = scene0.replace(
-            vertices=scene0.vertices.at[rows[0]:rows[1], 0].add(theta))
-        return bvhlib.attach(s)
-
-    patches = _binned_cpu_patches()
-    for p in patches:
-        p.start()
-    try:
-        def primal(theta):
-            return float(_mean_image(scene_at(theta), cam, path.li,
-                                     cfg_fd))
-
-        fd = (primal(theta0 + eps) - primal(theta0 - eps)) / (2 * eps)
-        assert fd > 0.1, fd  # the shadow boundary sweeps the frame
-
-        base = scene_at(theta0)
-        assert base.clusters is not None
-        # n_edge/spp/seed counts sized from the measured per-seed std
-        # (curve probe: importance-on std falls ~sqrt(M); 2 seeds at
-        # n_edge=4/spp=16 measured 19% off — SEM ~5% needs ~75k edge
-        # samples x 4 seeds)
-        bc = boundary.BoundaryConfig(n_edge=8, primary=False)
-
-        def loss(theta, seed):
-            s = base.replace(
-                vertices=base.vertices.at[rows[0]:rows[1], 0]
-                .add(theta - theta0))
-            cfg = common.RenderConfig(spp=24, max_depth=2, seed=seed)
-            return _mean_image(
-                s, cam, lambda s_, c_, o, d, st, cf:
-                boundary.li_grad(s_, c_, o, d, st, cf, bc), cfg)
-
-        g = np.mean([float(jax.grad(loss)(theta0, s))
-                     for s in (3, 11, 19, 27)])
-        assert abs(g - fd) < 0.10 * abs(fd), (g, fd)
-    finally:
-        for p in patches:
-            p.stop()
-
-
-@pytest.mark.slow
-def test_meshscale_inverse_recovery_binned():
-    """Inverse rendering ON the 10k-tri clustered mesh (VERDICT r4
-    item 2's second half): recover the sphere blocker's x-translation
-    from its shadow, with the binned intersector in every trace. Small
-    film/spp — the optimization only needs the gradient's sign and
-    rough scale."""
-    from mitsuba_tpu.scene import builtin, bvh as bvhlib
-
-    scene0, cam, rows = builtin.sphere_shadow(width=16, height=16,
-                                              attach_bvh=False)
-    theta_true = 0.2
-
-    def scene_shift(base, theta, theta_base):
-        return base.replace(
-            vertices=base.vertices.at[rows[0]:rows[1], 0]
-            .add(theta - theta_base))
-
-    patches = _binned_cpu_patches()
-    for p in patches:
-        p.start()
-    try:
-        target_scene = bvhlib.attach(scene_shift(scene0, theta_true, 0.0))
-        target = common.render(
-            target_scene, cam, path.li,
-            common.RenderConfig(spp=48, max_depth=2, seed=13))
-
-        # The cluster/BVH search tables are HOST-built from build-time
-        # vertices (the Pallas GEMM blocks do not track a traced vertex
-        # update), so each iteration re-attaches them at the CURRENT
-        # theta and the jitted step takes the scene as an ARGUMENT —
-        # identical pytree shapes, one compile, fresh tables per step.
-        theta = 0.32
-        bc = boundary.BoundaryConfig(n_edge=4, primary=False)
-
-        def loss(theta, base, theta_base, seed):
-            s = scene_shift(base, theta, theta_base)
-            cfg = common.RenderConfig(spp=8, max_depth=2, seed=seed)
-            img = common.render(
-                s, cam, lambda s_, c_, o, d, st, cf:
-                boundary.li_grad(s_, c_, o, d, st, cf, bc), cfg)
-            return jnp.mean((img - target) ** 2)
-
-        # seed rides in as a traced uint32 so every iteration reuses the
-        # ONE compiled gradient program (interpret-mode compiles are
-        # minutes each)
-        gl = jax.jit(jax.value_and_grad(loss))
-        # clipped-step gradient descent: the n_edge=4/spp=8 gradient is
-        # noisy per seed, so bound each move to 0.05 (one bad seed can't
-        # fling theta into the no-signal clip region) and keep theta in
-        # [0, 0.5] where the shadow boundary stays in frame
-        lr = 3.0
-        for it in range(8):
-            base = bvhlib.attach(scene_shift(scene0, theta, 0.0))
-            _, g = gl(theta, base, theta, jnp.uint32(it + 1))
-            step = float(np.clip(lr * float(g), -0.05, 0.05))
-            theta = float(np.clip(theta - step, 0.0, 0.5))
-            lr *= 0.85
-        assert abs(theta - theta_true) < 0.06, theta
-    finally:
-        for p in patches:
-            p.stop()
 
 
 @pytest.mark.slow

@@ -42,7 +42,7 @@ def test_compaction_ladder_invariant():
     in the state and a scatter-add film) must reproduce the plain
     regenerative render: same samples, only film reduction order may
     differ. fuse=True on CPU decomposes the fused dispatch into the two
-    standard trace calls, so the deferral + ladder logic runs off-TPU."""
+    standard trace calls on every route."""
     import jax
 
     scene, cam = builtin.cornell_box(width=32, height=32)

@@ -1,10 +1,9 @@
 """Multi-device scaling-efficiency benchmark.
 
-BASELINE target: >= 85% scaling efficiency on a 2-host v5p slice. Real
-multi-chip hardware is unavailable in this environment, so this tool
-measures the sharded render's scaling on whatever devices exist (and on
-the 8-virtual-device CPU mesh with --cpu, which validates the sharding
-structure rather than wall-clock).
+Measures the sharded render's scaling over 1, 2, 4, ... devices of one
+host: the target machine is one host with four GPUs, all to all over
+NVLink. With --cpu it runs on the 8-virtual-device CPU mesh, which
+validates the sharding structure rather than wall-clock.
 
 Usage: python tools/bench_scaling.py [--cpu] [--spp N]
 Prints one JSON line with per-device-count timings + efficiency.
@@ -30,15 +29,15 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
     import jax
-    import jax.numpy as jnp
+    from mitsuba_tpu import compile_cache
     from mitsuba_tpu.integrators import common, path
     from mitsuba_tpu.parallel import render_sharded as rs
     from mitsuba_tpu.scene import builtin
 
+    compile_cache.enable()
     ndev = len(jax.devices())
     scene, cam = builtin.cornell_box(width=args.res, height=args.res)
     cfg = common.RenderConfig(spp=args.spp, max_depth=4, seed=0)
-    float(jnp.zeros(()).sum())
 
     results = {}
     counts = [c for c in (1, 2, 4, 8, 16) if c <= ndev]

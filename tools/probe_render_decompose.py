@@ -1,22 +1,17 @@
-"""Decompose the end-to-end big-mesh render cost (VERDICT r4 item 1).
+"""Decompose the end-to-end big-mesh render cost.
 
-The 70k-tri `path` render measures 0.48M useful rays/s while the same
-mesh's coherent closest-hit microbench measures 2.64M — a 5.5x gap. The
-render dispatches the intersector at the WAVEFRONT width (128^2 pixels x
-1 lane = 16,384 rays/step) while the microbench runs 2^17-ray batches;
-this probe measures, same-session:
+The render dispatches the intersector at the WAVEFRONT width (128^2
+pixels x lanes per pixel) while the kdbench microbench runs 2^17-ray
+batches; this probe measures, in one process:
 
-  1. closest-hit + any-hit cost vs batch size (4k..131k) for the three
+  1. closest-hit + any-hit cost vs batch size (16k..131k) for the three
      ray classes the render actually issues: primary (camera cone),
      bounce (cosine-hemisphere off the blob surface), and shadow
      (surface -> area light, any-hit);
   2. the wavefront's step count and live-lane occupancy per step (the
-     straggler tail), host-replayed with the same RNG policy;
-  3. offline live-tile predictions per class (tools/probe_sort.py
-     machinery, free).
+     straggler tail), host-replayed with the same RNG policy.
 
-Methodology per MEMORY/tpu-bench-methodology: queued reps + one
-device-side-sliced value fetch; no block_until_ready.
+Timings wait for the device with block_until_ready.
 
 Usage: python tools/probe_render_decompose.py [classes|steps]
 """
@@ -25,7 +20,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_mitsuba_tpu")
 
 import jax
 import jax.numpy as jnp
@@ -75,8 +69,10 @@ def probe_classes():
     from bench import _bigmesh_scene
     from mitsuba_tpu.ops import trace
 
+    from mitsuba_tpu import compile_cache
+
+    compile_cache.enable()
     scene, cam = _bigmesh_scene(128, 128)
-    float(jnp.zeros(()).sum())
 
     f_closest = jax.jit(lambda s, o, d: trace.closest_hit(s, o, d).t)
     f_any = jax.jit(lambda s, o, d, tm: trace.any_hit(s, o, d, tm))
@@ -87,19 +83,13 @@ def probe_classes():
             o, d, tm = make_rays(scene, cam, n, kind)
             o, d = jax.device_put(o), jax.device_put(d)
             if kind == "shadow":
-                r = f_any(scene, o, d, tm)
-                np.asarray(r[:4])
-                reps = 5
-                t0 = time.perf_counter()
-                rs = [f_any(scene, o, d, tm) for _ in range(reps)]
-                np.asarray(rs[-1][:4]); np.asarray(rs[0][:4])
+                call = lambda: f_any(scene, o, d, tm)  # noqa: E731
             else:
-                r = f_closest(scene, o, d)
-                np.asarray(r[:4])
-                reps = 5
-                t0 = time.perf_counter()
-                rs = [f_closest(scene, o, d) for _ in range(reps)]
-                np.asarray(rs[-1][:4]); np.asarray(rs[0][:4])
+                call = lambda: f_closest(scene, o, d)  # noqa: E731
+            call().block_until_ready()
+            reps = 5
+            t0 = time.perf_counter()
+            jax.block_until_ready([call() for _ in range(reps)])
             dt = (time.perf_counter() - t0) / reps
             print(f"{kind:>8} {n:>7} {dt*1e3:>8.2f} {n/dt/1e6:>8.3f}")
 

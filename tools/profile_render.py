@@ -1,17 +1,18 @@
-"""Device profiling for renders: XLA trace capture + an MFU/bandwidth
-estimate (closes SURVEY §5's profiling gap — the reference's
+"""Device profiling for renders: XLA trace capture + cost-analysis lower
+bounds (closes SURVEY §5's profiling gap — the reference's
 statistics.h counters exist in utils/stats.py; this adds the
 device-level view the reference never had).
 
 Usage:
     python tools/profile_render.py [outdir]          # Cornell path
+                                     # (default outdir: chiprun_out/profile)
     python tools/profile_render.py outdir bigmesh    # 70k-tri render
 
 Writes a TensorBoard/XProf trace under <outdir> (open with
 `tensorboard --logdir <outdir>` or xprof) and prints a one-line
-summary: wall time, estimated FLOPs (from the compiled HLO's cost
-analysis), model FLOP utilization (MFU) against the chip's peak, and
-rays/s.
+summary: wall time, the card's power limit, and lower bounds on FLOP/s
+and bytes/s from the compiled HLO's cost analysis (which counts a
+while_loop body once, so they are not utilisations).
 """
 import os
 import sys
@@ -20,32 +21,21 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-import jax.numpy as jnp
-import numpy as np
 
-# per-chip peak dense f32-accumulate matmul throughput, FLOP/s
-PEAK_FLOPS = {
-    "TPU v5 lite": 394e12 / 2,     # v5e: 394 Tflop/s bf16 -> ~197 f32
-    "TPU v4": 275e12 / 2,
-}
-
-
-def peak_for(device) -> float:
-    s = str(device)
-    for k, v in PEAK_FLOPS.items():
-        if k in s:
-            return v
-    return 100e12
+from bench import peak_flops, power_limit  # noqa: E402
 
 
 def main():
-    outdir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/mitsuba_trace"
+    outdir = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "chiprun_out", "profile")
     which = sys.argv[2] if len(sys.argv) > 2 else "cornell"
 
-    from mitsuba_tpu.integrators import common, wavefront
+    from mitsuba_tpu import compile_cache
+    from mitsuba_tpu.integrators import common
     from mitsuba_tpu.scene import builtin
 
-    float(jnp.zeros(()).sum())
+    compile_cache.enable()
     if which == "cornell":
         scene, cam = builtin.cornell_box(width=256, height=256)
         cfg = common.RenderConfig(spp=64, max_depth=8, rr_depth=5, seed=0)
@@ -66,26 +56,25 @@ def main():
     except Exception:
         flops, bytes_acc = 0.0, 0.0
 
-    img = compiled(scene, cam)
-    np.asarray(img[:1, :1])
+    compiled(scene, cam).block_until_ready()
 
     with jax.profiler.trace(outdir):
         t0 = time.perf_counter()
-        img = compiled(scene, cam)
-        np.asarray(img[:1, :1])
+        compiled(scene, cam).block_until_ready()
         dt = time.perf_counter() - t0
 
-    peak = peak_for(jax.devices()[0])
-    mfu = flops / dt / peak if flops else float("nan")
-    bw = bytes_acc / dt / 1e9 if bytes_acc else float("nan")
-    print(f"scene={which} device={jax.devices()[0]}")
-    print(f"wall={dt*1e3:.1f} ms  flops={flops/1e9:.2f} G  "
-          f"MFU={mfu*100:.4f}%  est-HBM={bw:.1f} GB/s")
-    print("note: XLA cost analysis does not see inside Pallas custom "
-          "calls; for scenes routed to the Pallas/binned intersector "
-          "the true FLOPs are higher — use the trace's op breakdown. "
-          "A near-zero MFU is expected for path tracing: the workload "
-          "is VPU/HBM-bound, not MXU-bound (see BASELINE.md).")
+    peak = peak_flops(jax.devices()[0])
+    nan = float("nan")
+    print(f"scene={which} device={jax.devices()[0]} "
+          f"card={power_limit()}")
+    print(f"wall={dt*1e3:.1f} ms  cost-analysis flops={flops/1e9:.2f} G  "
+          f"FLOP/s lower bound={flops / dt if flops else nan:.3e} "
+          f"({flops / dt / peak * 100 if flops else nan:.4f}% of the "
+          f"700 W peak)  bytes/s lower bound="
+          f"{bytes_acc / dt if bytes_acc else nan:.3e}")
+    print("note: XLA cost analysis counts a while_loop body once, so these "
+          "are lower bounds, not utilisations — use the trace's op "
+          "breakdown.")
     print(f"trace written to {outdir} (tensorboard --logdir {outdir})")
 
 
